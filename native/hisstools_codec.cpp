@@ -2,7 +2,7 @@
 //
 // The reference's readers/writers convert PCM sample-by-sample in C++
 // (/root/reference/AudioFile/IAudioFile.cpp readAudio loops, OAudioFile.cpp
-// writeAudio); this library plays the same role for the TPU framework's host-side
+// writeAudio); this library plays the same role for the JAX framework's host-side
 // data loading: branch-free per-format conversion loops the compiler can
 // vectorise, callable from Python via ctypes (see io/native_codec.py).
 //

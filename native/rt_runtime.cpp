@@ -5,7 +5,7 @@
 // a lock-guarded hot-swappable buffer the audio thread may only attempt()
 // (MemorySwap.h:174-212), and dual staging buffers that decouple the audio
 // callback from the processing cadence (PartitionedConvolve.cpp:304-307,
-// TimeDomainConvolve.cpp:142-143). This library is that runtime for the TPU
+// TimeDomainConvolve.cpp:142-143). This library is that runtime for the JAX
 // framework: the device compute is JAX, but the serving host around it —
 // the audio-callback thread, the lock discipline, the sample staging — is
 // native so a real audio callback (PortAudio/JACK/CoreAudio) can run it

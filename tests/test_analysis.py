@@ -6,11 +6,11 @@ import scipy.signal
 
 import jax.numpy as jnp
 
-from hisstools_library_tpu.ops import statistics as st
-from hisstools_library_tpu.ops import smoothing
-from hisstools_library_tpu.ops.interpolation import InterpType
-from hisstools_library_tpu.ops.table_reader import EdgeMode, table_read
-from hisstools_library_tpu.models.partial_tracker import (
+from hisstools_library.ops import statistics as st
+from hisstools_library.ops import smoothing
+from hisstools_library.ops.interpolation import InterpType
+from hisstools_library.ops.table_reader import EdgeMode, table_read
+from hisstools_library.models.partial_tracker import (
     CONTINUE, OFF, START, SWITCH, PartialTracker)
 
 
@@ -65,7 +65,7 @@ def test_bound_clamps_positions():
 
 def test_cubic_interpolators_reproduce_polynomials():
     # Hermite and Lagrange interpolate cubics exactly on uniform grids
-    from hisstools_library_tpu.ops.interpolation import (
+    from hisstools_library.ops.interpolation import (
         cubic_hermite_interp, cubic_lagrange_interp)
     f = lambda t: 0.3 * t ** 2 - t + 2
     y = [f(-1), f(0), f(1), f(2)]
@@ -188,7 +188,7 @@ def test_smooth_wide_uses_fft_same_result(rng):
     y = np.asarray(smoothing.smooth(jnp.asarray(x), kern, 80.0, 80.0,
                                     symmetric=False, edges=smoothing.EdgeMode.ZeroPad))
     # direct oracle
-    from hisstools_library_tpu.ops.smoothing import _Ends, _resample_kernel
+    from hisstools_library.ops.smoothing import _Ends, _resample_kernel
     filt = _resample_kernel(kern, 79, _Ends.Zero)  # width 2*40-1, ends Zero (hann)
     gain = 1.0 / filt.sum()
     pad = np.concatenate([np.zeros(40), x, np.zeros(40)])
@@ -273,7 +273,7 @@ def test_smooth_vectorised_matches_group_path(rng):
     latter forced by a batch large enough to exceed the materialisation
     budget)."""
     import jax.numpy as jnp
-    from hisstools_library_tpu.ops import smoothing, windows
+    from hisstools_library.ops import smoothing, windows
 
     L = 4096
     k = np.asarray(windows.hann(63, dtype=jnp.float64))[31:]
@@ -355,7 +355,7 @@ def test_statistics_remaining_surface(rng):
 
 def test_device_rng_helpers():
     """device_uniform/device_gaussian: jax-native RNG conveniences."""
-    from hisstools_library_tpu.utils import device_uniform, device_gaussian
+    from hisstools_library.utils import device_uniform, device_gaussian
     import jax
     k = jax.random.PRNGKey(0)
     u = np.asarray(device_uniform(k, (4096,)))
@@ -372,7 +372,7 @@ def test_tracker_parallel_rounds_match_sequential_greedy():
     (PartialTracker.hpp:224-289: sort costs ascending, assign skipping used
     peaks/tracks, stable in peak-major generation order)."""
     import jax.numpy as jnp
-    from hisstools_library_tpu.models import partial_tracker as pt
+    from hisstools_library.models import partial_tracker as pt
 
     rng = np.random.default_rng(42)
     pk = tr = 8

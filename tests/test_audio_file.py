@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 import scipy.io.wavfile
 
-from hisstools_library_tpu.io import (
+from hisstools_library.io import (
     Endianness, FileType, IAudioFile, OAudioFile, PCMFormat,
     double_to_extended, extended_to_double)
 
@@ -129,7 +129,7 @@ def test_bad_file_errors(tmp_path):
 
 
 def test_error_strings():
-    from hisstools_library_tpu.io import Error, extract_errors_from_flags, get_error_string
+    from hisstools_library.io import Error, extract_errors_from_flags, get_error_string
     flags = int(Error.FILE_BAD_FORMAT | Error.AIFC_WRONG_VERSION)
     errs = extract_errors_from_flags(flags)
     assert Error.FILE_BAD_FORMAT in errs and Error.AIFC_WRONG_VERSION in errs

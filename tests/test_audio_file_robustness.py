@@ -10,7 +10,7 @@ read_interleaved never raises.
 import numpy as np
 import pytest
 
-from hisstools_library_tpu.io import (Error, FileType, IAudioFile, OAudioFile,
+from hisstools_library.io import (Error, FileType, IAudioFile, OAudioFile,
                                       PCMFormat, get_error_string)
 
 

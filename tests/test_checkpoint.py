@@ -10,9 +10,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from hisstools_library_tpu.models import mono
-from hisstools_library_tpu.models.mono import PartitionScheme
-from hisstools_library_tpu.utils import checkpoint as ckpt
+from hisstools_library.models import mono
+from hisstools_library.models.mono import PartitionScheme
+from hisstools_library.utils import checkpoint as ckpt
 
 
 SCHEME = PartitionScheme((32, 128), zero_latency=True)

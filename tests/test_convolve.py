@@ -1,7 +1,7 @@
 """Convolution engine parity tests vs direct numpy convolution.
 
-Covers BASELINE.json configs 3 (time-domain FIR parity) and 4 (uniform +
-non-uniform partitioned convolution parity): the streaming scan engine, the
+Covers time-domain FIR parity and uniform + non-uniform partitioned
+convolution parity: the streaming scan engine, the
 offline batched engine, and the zero/short/medium latency schemes must all equal
 ``np.convolve`` to float64 precision on CPU (SNR targets far beyond the 80 dB
 production bound).
@@ -13,9 +13,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from hisstools_library_tpu.core.types import Split
-from hisstools_library_tpu.models import mono, partitioned, time_domain as td
-from hisstools_library_tpu.models.mono import LatencyMode, PartitionScheme
+from hisstools_library.core.types import Split
+from hisstools_library.models import mono, partitioned, time_domain as td
+from hisstools_library.models.mono import LatencyMode, PartitionScheme
 
 
 def snr_db(ref, test):
@@ -187,7 +187,7 @@ def test_scheme_section_windows():
 
 
 def test_scheme_validation():
-    from hisstools_library_tpu.core.errors import ConvolveException
+    from hisstools_library.core.errors import ConvolveException
     with pytest.raises(ConvolveException):
         PartitionScheme((100, 200), True)  # non power of two
     with pytest.raises(ConvolveException):
@@ -223,8 +223,8 @@ def test_offline_tail_matches_sectioned(rng):
     throughput-optimal FFT size + realignment shift) == the per-section
     engine, for a long IR where the tail actually builds."""
     import jax.numpy as jnp
-    from hisstools_library_tpu.models import mono
-    from hisstools_library_tpu.models.mono import LatencyMode, PartitionScheme
+    from hisstools_library.models import mono
+    from hisstools_library.models.mono import LatencyMode, PartitionScheme
 
     scheme = PartitionScheme.from_latency(LatencyMode.Zero)
     L = 65536
@@ -261,8 +261,8 @@ def test_process_block_matches_step_scan(rng):
     state carry across calls and a non-trivial starting ring position."""
     import jax
     import jax.numpy as jnp
-    from hisstools_library_tpu.core.types import Split
-    from hisstools_library_tpu.models import partitioned as part
+    from hisstools_library.core.types import Split
+    from hisstools_library.models import partitioned as part
 
     fft_size, h = 256, 128
     ir = (rng.standard_normal(900) * 0.3).astype(np.float32)  # P = 7 + pad
@@ -272,7 +272,7 @@ def test_process_block_matches_step_scan(rng):
     P = spec1.shape[-2]
 
     def fresh_state():
-        from hisstools_library_tpu.core.types import Split as S
+        from hisstools_library.core.types import Split as S
         return part.PartitionedState(
             prev=jnp.zeros((2, h), jnp.float32),
             ring=S(jnp.zeros((2, P, h), jnp.float32),
@@ -315,7 +315,7 @@ def test_scheme_for_latency_budget(rng):
     """Latency-budget scheme selection: presets below 1024, a single uniform
     section above (hop == N/2 must fit the budget; larger budgets cap at
     2^17)."""
-    from hisstools_library_tpu.models.mono import PartitionScheme
+    from hisstools_library.models.mono import PartitionScheme
     assert PartitionScheme.for_latency_budget(0).zero_latency
     assert PartitionScheme.for_latency_budget(127).zero_latency
     assert PartitionScheme.for_latency_budget(128).latency == 128
@@ -336,37 +336,6 @@ def test_scheme_for_latency_budget(rng):
     lat = s.latency
     ref = np.concatenate([np.zeros(lat), np.convolve(x, ir)])[:L]
     assert snr_db(ref, y) > 180
-
-
-def test_fastfir_mega_kernel_matches_staged_chain(rng):
-    """The whole-chain mega-kernel (pallas_fft.fastfir_chain) must match the
-    three-kernel staged chain and the np.convolve oracle (f32, interpret)."""
-    import os
-    x = rng.standard_normal((2, 40000)).astype(np.float32)
-    ir = rng.standard_normal((2, 30000)).astype(np.float32)
-    from hisstools_library_tpu.models.offline import fast_fir
-    y_mega = fast_fir(jnp.asarray(x), ir, fft_size=1 << 14, backend="pallas")
-    os.environ["HISSTOOLS_FASTFIR_CHAIN"] = "0"
-    try:
-        y_staged = fast_fir(jnp.asarray(x), ir, fft_size=1 << 14,
-                            backend="pallas")
-    finally:
-        del os.environ["HISSTOOLS_FASTFIR_CHAIN"]
-    assert snr_db(np.asarray(y_staged), np.asarray(y_mega)) > 110
-    for c in range(2):
-        ref = np.convolve(x[c].astype(np.float64),
-                          ir[c].astype(np.float64))[:40000]
-        assert snr_db(ref, np.asarray(y_mega)[c]) > 100
-    # The ping-pong spectra prefetch (HISSTOOLS_FASTFIR_PREFETCH) is a pure
-    # scheduling change: output must be identical to the non-prefetch kernel.
-    os.environ["HISSTOOLS_FASTFIR_PREFETCH"] = "1"
-    try:
-        y_pf = fast_fir(jnp.asarray(x), ir, fft_size=1 << 14,
-                        backend="pallas")
-    finally:
-        del os.environ["HISSTOOLS_FASTFIR_PREFETCH"]
-    np.testing.assert_allclose(np.asarray(y_pf), np.asarray(y_mega),
-                               rtol=1e-6, atol=1e-5)
 
 
 def test_lazy_tail_attach_matches_eager(rng):
@@ -394,7 +363,7 @@ def test_partitioned_set_clamps_to_max_length(rng):
     """An IR longer than max_length flags MEM_ALLOC_TOO_SMALL AND convolves
     only the first max_length taps (reference PartitionedConvolve.cpp:195-199
     clamps alongside the error)."""
-    from hisstools_library_tpu.core.errors import ConvolveError
+    from hisstools_library.core.errors import ConvolveError
     eng = partitioned.PartitionedConvolve(256, max_length=300, length=1000)
     ir = rng.standard_normal(1000).astype(np.float32)
     err = eng.set(ir)
@@ -411,7 +380,7 @@ def test_partitioned_set_clamps_to_max_length(rng):
 
 
 def test_validate_fft_size_zero_raises_convolve_error():
-    from hisstools_library_tpu.core.errors import ConvolveException
+    from hisstools_library.core.errors import ConvolveException
     for bad in (0, -4):
         with pytest.raises(ConvolveException):
             partitioned.validate_fft_size(bad)
@@ -421,7 +390,7 @@ def test_scheme_rejects_more_than_four_sizes():
     """sections() builds plans for at most A<B<C<D (reference setPartitions,
     MonoConvolve.cpp:203-258); a 5th size used to be silently dropped,
     mis-covering the IR (measured rel err ~1.2 on the streamed output)."""
-    from hisstools_library_tpu.core.errors import ConvolveException
+    from hisstools_library.core.errors import ConvolveException
     with pytest.raises(ConvolveException):
         mono.PartitionScheme((64, 128, 256, 512, 1024), zero_latency=True)
     # 4 sizes remain exactly covered end-to-end
@@ -460,181 +429,3 @@ def test_mono_set_no_resize_clamps(rng):
     st2 = mono.init_state(scheme, mir, (), jnp.float64)
     _, y2 = mono.process(mir, st2, jnp.asarray(x))
     np.testing.assert_array_equal(np.asarray(y), np.asarray(y2))
-
-
-@pytest.mark.parametrize("mode", ["highest", "bf16x3"])
-def test_fastfir_stream_chain_matches_step_scan(rng, mode):
-    """The streaming whole-chain mega-kernel (pallas_fft.fastfir_chain_stream)
-    continues a warmed step() engine exactly: 3 step() hops, slot-normalise
-    the ring, then one kernel call over 8 more hops — the composite must
-    match an 11-hop pure step() scan in BOTH MXU modes (the offline chain is
-    covered via fast_fir; this pins the stream variant's preloaded-ring and
-    carried-prev handling directly)."""
-    import jax.numpy as jnp
-    from hisstools_library_tpu.fft import pallas_fft as pf
-    from hisstools_library_tpu.models import partitioned as part
-    from hisstools_library_tpu.core.types import Split as S
-
-    n, hop, c, t = 2048, 1024, 2, 8
-    ir = (rng.standard_normal(5 * hop - 300) * 0.3).astype(np.float32)
-    spec = part.impulse_spectra(ir[None], n, 0, 0)
-    P = spec.shape[-2]
-    spec1 = S(spec.re[0], spec.im[0])
-    x = rng.standard_normal((c, (t + 3) * hop)).astype(np.float32)
-
-    def fresh():
-        return part.PartitionedState(
-            prev=jnp.zeros((c, hop), jnp.float32),
-            ring=S(jnp.zeros((c, P, n // 2), jnp.float32),
-                   jnp.zeros((c, P, n // 2), jnp.float32)),
-            pos=jnp.zeros((), jnp.int32))
-
-    st_ref, ref_outs = fresh(), []
-    for j in range(t + 3):
-        st_ref, y = part.PartitionedConvolve.step(
-            spec1, st_ref, jnp.asarray(x[:, j * hop:(j + 1) * hop]))
-        ref_outs.append(np.asarray(y))
-    y_ref = np.concatenate(ref_outs, axis=-1)
-
-    st2, outs = fresh(), []
-    for j in range(3):
-        st2, y = part.PartitionedConvolve.step(
-            spec1, st2, jnp.asarray(x[:, j * hop:(j + 1) * hop]))
-        outs.append(np.asarray(y))
-    s = part.PartitionedConvolve._slot_normalise(st2.ring, st2.pos)
-    hr = jnp.broadcast_to(spec1.re, (c, P, n // 2))
-    hi = jnp.broadcast_to(spec1.im, (c, P, n // 2))
-    yk, nr, ni = pf.fastfir_chain_stream(
-        jnp.asarray(x[:, 3 * hop:(3 + t) * hop]).reshape(c, t, hop),
-        st2.prev, s.re, s.im, hr, hi, scale=1.0 / (4.0 * n),
-        interpret=True, mode=mode)
-    got = np.concatenate(outs + [np.asarray(yk).reshape(c, -1)], axis=-1)
-    assert snr_db(y_ref, got) > (110.0 if mode == "highest" else 95.0)
-    assert nr.shape == (c, P, n // 2)
-
-
-@pytest.mark.parametrize("g", [2, 4, 8])
-def test_fastfir_stream_chain_grouped_hops(rng, g):
-    """G hops per grid step (HISSTOOLS_STREAM_G) must be output- and
-    ring-identical to the ungrouped kernel — grouping only amortizes the
-    per-step skeleton (the round-4 streaming lever)."""
-    import os
-    import jax.numpy as jnp
-    from hisstools_library_tpu.fft import pallas_fft as pf
-    from hisstools_library_tpu.models import partitioned as part
-    from hisstools_library_tpu.core.types import Split as S
-
-    n, hop, c, t = 2048, 1024, 2, 8
-    ir = (rng.standard_normal(5 * hop - 300) * 0.3).astype(np.float32)
-    spec = part.impulse_spectra(ir[None], n, 0, 0)
-    P = spec.shape[-2]
-    x = rng.standard_normal((c, t, hop)).astype(np.float32)
-    prev = rng.standard_normal((c, hop)).astype(np.float32)
-    rr = (rng.standard_normal((c, P, n // 2)) * 0.1).astype(np.float32)
-    ri = (rng.standard_normal((c, P, n // 2)) * 0.1).astype(np.float32)
-    hr = jnp.broadcast_to(spec.re[0], (c, P, n // 2))
-    hi = jnp.broadcast_to(spec.im[0], (c, P, n // 2))
-    l0 = part.impulse_spectra(
-        (rng.standard_normal(hop) * 0.2).astype(np.float32)[None], n, 0, 0)
-    l0r = jnp.broadcast_to(l0.re[0], (c, n // 2))
-    l0i = jnp.broadcast_to(l0.im[0], (c, n // 2))
-
-    args = (jnp.asarray(x), jnp.asarray(prev), jnp.asarray(rr),
-            jnp.asarray(ri), hr, hi)
-    kw = dict(scale=1.0 / (4.0 * n), interpret=True, l0_re=l0r, l0_im=l0i)
-    y1, r1, i1 = pf.fastfir_chain_stream(*args, **kw)  # picker -> g = 1 here
-    os.environ["HISSTOOLS_STREAM_G"] = str(g)
-    try:
-        yg, rg, ig = pf.fastfir_chain_stream(*args, **kw)
-    finally:
-        del os.environ["HISSTOOLS_STREAM_G"]
-    np.testing.assert_allclose(np.asarray(yg), np.asarray(y1),
-                               rtol=1e-6, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(rg), np.asarray(r1),
-                               rtol=1e-6, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(ig), np.asarray(i1),
-                               rtol=1e-6, atol=1e-5)
-
-
-@pytest.mark.parametrize("mode", ["highest", "bf16x3"])
-def test_fastfir_stream_chain_lag0_matches_staged(rng, mode):
-    """The mega-kernel's zero-delay (lag0) partition must match the staged
-    process_block path bit-for-bit in semantics: same hops, same ring state,
-    same block0 spectrum — the collapsed Zero-preset streaming path
-    (mono._process_block_collapsed) rides this. Reference semantics:
-    MonoConvolve.cpp:179-201 (the summed multi-section process)."""
-    import jax.numpy as jnp
-    from hisstools_library_tpu.fft import pallas_fft as pf
-    from hisstools_library_tpu.models import partitioned as part
-    from hisstools_library_tpu.core.types import Split as S
-
-    n, hop, c, t = 2048, 1024, 2, 6
-    ir = (rng.standard_normal(4 * hop - 100) * 0.3).astype(np.float32)
-    spec = part.impulse_spectra(ir[None], n, 0, 0)
-    P = spec.shape[-2]
-    l0 = part.impulse_spectra(
-        (rng.standard_normal(hop) * 0.2).astype(np.float32)[None], n, 0, 0)
-    x = rng.standard_normal((c, t * hop)).astype(np.float32)
-
-    st = part.PartitionedState(
-        prev=jnp.asarray(rng.standard_normal((c, hop)), jnp.float32),
-        ring=S(jnp.asarray(rng.standard_normal((c, P, n // 2)), jnp.float32) * .1,
-               jnp.asarray(rng.standard_normal((c, P, n // 2)), jnp.float32) * .1),
-        pos=jnp.zeros((), jnp.int32))
-
-    # Staged reference: force the non-kernel path.
-    import os
-    os.environ["HISSTOOLS_FASTFIR_CHAIN"] = "0"
-    try:
-        st_ref, y_ref = part.PartitionedConvolve.process_block(
-            S(spec.re[0], spec.im[0]), st, jnp.asarray(x),
-            backend="pallas", lag0=S(l0.re, l0.im))
-    finally:
-        del os.environ["HISSTOOLS_FASTFIR_CHAIN"]
-    pf.set_mode(mode)
-    os.environ["HISSTOOLS_STREAM_MEGA"] = "1"  # kernel path is opt-in
-    try:
-        st_k, y_k = part.PartitionedConvolve.process_block(
-            S(spec.re[0], spec.im[0]), st, jnp.asarray(x),
-            backend="pallas", lag0=S(l0.re, l0.im))
-    finally:
-        pf.set_mode("highest")
-        del os.environ["HISSTOOLS_STREAM_MEGA"]
-    assert snr_db(np.asarray(y_ref), np.asarray(y_k)) > (
-        110.0 if mode == "highest" else 95.0)
-    assert snr_db(np.asarray(st_ref.ring.re), np.asarray(st_k.ring.re)) > (
-        110.0 if mode == "highest" else 95.0)
-    assert int(st_k.pos) == 0
-    np.testing.assert_allclose(np.asarray(st_k.prev), x[:, -hop:], atol=1e-6)
-
-
-def test_process_block_chain_path_preserves_dtype(rng):
-    """The fastfir_chain_stream fast path must hand back the ring state and
-    output in the CALLER's dtype (a bf16 state carried through lax.scan would
-    otherwise hit a carry dtype mismatch on the second step)."""
-    import jax.numpy as jnp
-    from hisstools_library_tpu.core.types import Split as S
-    from hisstools_library_tpu.models import partitioned as part
-
-    n, hop, c = 1 << 14, 1 << 13, 1
-    ir = (rng.standard_normal(3 * hop) * 0.1).astype(np.float32)
-    spec = part.impulse_spectra(ir[None], n, 0, 0)
-    P = spec.shape[-2]
-    spec_b = S(spec.re[0].astype(jnp.bfloat16), spec.im[0].astype(jnp.bfloat16))
-    st = part.PartitionedState(
-        prev=jnp.zeros((c, hop), jnp.bfloat16),
-        ring=S(jnp.zeros((c, P, n // 2), jnp.bfloat16),
-               jnp.zeros((c, P, n // 2), jnp.bfloat16)),
-        pos=jnp.zeros((), jnp.int32))
-    x = jnp.asarray(rng.standard_normal((c, 4 * hop)), jnp.bfloat16)
-    st2, y = part.PartitionedConvolve.process_block(spec_b, st, x,
-                                                    backend="pallas")
-    assert y.dtype == jnp.bfloat16
-    assert st2.ring.re.dtype == jnp.bfloat16
-    # the state structure is scan-carry compatible with the input state
-    import jax
-    assert (jax.tree_util.tree_structure(st)
-            == jax.tree_util.tree_structure(st2))
-    st3, y2 = part.PartitionedConvolve.process_block(spec_b, st2, x,
-                                                     backend="pallas")
-    assert y2.dtype == jnp.bfloat16

@@ -1,10 +1,9 @@
 """Determinism: same inputs -> bitwise-identical outputs.
 
 The reference's concurrency-safety story is lock discipline (MemorySwap +
-thread_lock); the functional TPU equivalent per SURVEY.md §5 is proving that
+thread_lock); the functional equivalent per SURVEY.md §5 is proving that
 repeated evaluation is bitwise reproducible — no nondeterministic reduction
-orders or uninitialised memory anywhere in the engines (Pallas kernels
-included; on CPU they run in interpret mode, the same program the TPU runs).
+orders or uninitialised memory anywhere in the engines.
 """
 
 import numpy as np
@@ -12,9 +11,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from hisstools_library_tpu.models import mono
-from hisstools_library_tpu.models.mono import PartitionScheme
-from hisstools_library_tpu.models.offline import FastFIR
+from hisstools_library.models import mono
+from hisstools_library.models.mono import PartitionScheme
+from hisstools_library.models.offline import FastFIR
 
 
 def _bitwise_equal(a, b):
@@ -22,11 +21,11 @@ def _bitwise_equal(a, b):
                           np.asarray(b).view(np.uint32))
 
 
-def test_fused_offline_chain_bitwise_reproducible(rng):
+def test_offline_chain_bitwise_reproducible(rng):
     ir = (rng.standard_normal(9000) * 0.2).astype(np.float32)
     x = rng.standard_normal((2, 20000)).astype(np.float32)
-    eng = FastFIR(ir[None], fft_size=4096, backend="pallas")
-    f = jax.jit(lambda s, xx: FastFIR.apply(s, xx, backend="pallas"))
+    eng = FastFIR(ir[None], fft_size=4096)
+    f = jax.jit(FastFIR.apply)
     y1 = f(eng.spectra, jnp.asarray(x))
     y2 = f(eng.spectra, jnp.asarray(x))
     assert _bitwise_equal(y1, y2)
@@ -46,15 +45,15 @@ def test_streaming_scan_bitwise_reproducible(rng):
 
 
 def test_sharded_bitwise_reproducible(rng):
-    from hisstools_library_tpu.parallel import make_mesh, scheme_offline_sharded
+    from hisstools_library.parallel import make_mesh, scheme_offline_sharded
 
     mesh = make_mesh(channel=2, block=4)
     scheme = PartitionScheme((4096,), zero_latency=False)
     ir = mono.prepare_ir(scheme, (rng.standard_normal((4, 5000)) * 0.2
                                   ).astype(np.float32), offline_tail=False)
     x = jnp.asarray(rng.standard_normal((4, 2048 * 8)).astype(np.float32))
-    y1 = scheme_offline_sharded(mesh, scheme, ir, x, backend="pallas")
-    y2 = scheme_offline_sharded(mesh, scheme, ir, x, backend="pallas")
+    y1 = scheme_offline_sharded(mesh, scheme, ir, x)
+    y2 = scheme_offline_sharded(mesh, scheme, ir, x)
     assert _bitwise_equal(y1, y2)
 
 
@@ -89,8 +88,8 @@ def test_long_stream_no_snr_drift(rng):
     accuracy is stationary. Probed at 1200 hops (~135 dB both ends); pinned
     here at 400 hops."""
     import jax
-    from hisstools_library_tpu.models import mono
-    from hisstools_library_tpu.models.mono import PartitionScheme
+    from hisstools_library.models import mono
+    from hisstools_library.models.mono import PartitionScheme
 
     scheme = PartitionScheme((32, 128, 512), zero_latency=True)
     ir = (rng.standard_normal(2000) *

@@ -1,13 +1,13 @@
 """Double-float (df64) FFT — on-device ~280 dB transforms (fft/df64.py).
 
 Closes the last numeric delta to the reference's float64 overloads
-(HISSTools_FFT.h:87-369, ~300 dB round trips) on f64-less TPU hardware. The
+(HISSTools_FFT.h:87-369, ~300 dB round trips) from f32 arithmetic. The
 oracle is numpy float64; the df64 result is recombined hi+lo on the host."""
 
 import numpy as np
 import pytest
 
-from hisstools_library_tpu.fft import df64
+from hisstools_library.fft import df64
 
 
 @pytest.fixture

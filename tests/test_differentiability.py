@@ -1,4 +1,4 @@
-"""Differentiability of the pure engines — a TPU-native capability with no
+"""Differentiability of the pure engines — a JAX capability with no
 reference analogue (the C++ is not differentiable; the functional JAX design
 gives exact VJPs through every XLA-path engine for free).
 
@@ -14,10 +14,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from hisstools_library_tpu.core.types import Split
-from hisstools_library_tpu.models import mono, time_domain as td
-from hisstools_library_tpu.models.mono import PartitionScheme
-from hisstools_library_tpu.ops import spectral_processor as sp
+from hisstools_library.core.types import Split
+from hisstools_library.models import mono, time_domain as td
+from hisstools_library.models.mono import PartitionScheme
+from hisstools_library.ops import spectral_processor as sp
 
 
 SCHEME = PartitionScheme((32, 128), zero_latency=True)

@@ -1,7 +1,7 @@
 """Mesh-sharded four-step FFT (parallel/fft_sharded.py).
 
 Oracle: numpy float64 FFT. The distributed transform must match the
-single-chip path bitwise-closely (same f64-sourced tables, same MXU core),
+single-chip path bitwise-closely (same f64-sourced tables, same matmul core),
 stay sharded end-to-end (contiguous chunks in and out), and be invariant to
 the mesh factorisation.
 """
@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from hisstools_library_tpu.fft import api as fft_api
-from hisstools_library_tpu.parallel import mesh as mesh_mod
-from hisstools_library_tpu.parallel.fft_sharded import (
+from hisstools_library.fft import api as fft_api
+from hisstools_library.parallel import mesh as mesh_mod
+from hisstools_library.parallel.fft_sharded import (
     convolve_sharded, fft_sharded, real_sharded_eligible, rfft_sharded,
     rifft_sharded, sharded_eligible)
 

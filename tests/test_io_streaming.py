@@ -12,10 +12,10 @@ import sys
 import numpy as np
 import pytest
 
-from hisstools_library_tpu.io import (FileType, IAudioFile, OAudioFile,
+from hisstools_library.io import (FileType, IAudioFile, OAudioFile,
                                       PCMFormat)
-from hisstools_library_tpu.io.streaming import AudioBlockReader
-from hisstools_library_tpu.utils import native_rt
+from hisstools_library.io.streaming import AudioBlockReader
+from hisstools_library.utils import native_rt
 
 _NATIVE = native_rt.available()
 _PATHS = [False] + ([True] if _NATIVE else [])

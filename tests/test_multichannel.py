@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from hisstools_library_tpu.models import multichannel as mc
-from hisstools_library_tpu.models.mono import PartitionScheme
+from hisstools_library.models import multichannel as mc
+from hisstools_library.models.mono import PartitionScheme
 
 
 def snr_db(ref, test):

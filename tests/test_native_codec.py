@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from hisstools_library_tpu.io import audio_file as af
-from hisstools_library_tpu.io import native_codec
+from hisstools_library.io import audio_file as af
+from hisstools_library.io import native_codec
 
 
 @pytest.fixture(scope="module")

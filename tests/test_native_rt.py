@@ -2,7 +2,7 @@
 
 The reference's serving-host machinery is C++ (ThreadLocks.hpp spinlock,
 MemorySwap.h hot-swap cell, PartitionedConvolve.cpp:304-307 staging buffers);
-these tests drive the TPU framework's native counterparts: lock discipline,
+these tests drive the framework's native counterparts: lock discipline,
 swap-cell consistency under two-thread hammering, SPSC ring integrity, and a
 full duplex audio-callback host loop with underrun accounting.
 """
@@ -13,8 +13,8 @@ import time
 import numpy as np
 import pytest
 
-from hisstools_library_tpu.utils import native_rt as rt
-from hisstools_library_tpu.utils.memory_swap import MemorySwap
+from hisstools_library.utils import native_rt as rt
+from hisstools_library.utils.memory_swap import MemorySwap
 
 pytestmark = pytest.mark.skipif(not rt.available(),
                                 reason="native runtime unavailable (no g++)")

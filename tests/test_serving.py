@@ -14,8 +14,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from hisstools_library_tpu.models.mono import PartitionScheme
-from hisstools_library_tpu.utils.serving import StreamingServer
+from hisstools_library.models.mono import PartitionScheme
+from hisstools_library.utils.serving import StreamingServer
 
 
 def snr_db(ref, test):

@@ -10,9 +10,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from hisstools_library_tpu.core.types import Split
-from hisstools_library_tpu.fft import api as fft_api
-from hisstools_library_tpu.ops import spectral, spectral_processor as sp
+from hisstools_library.core.types import Split
+from hisstools_library.fft import api as fft_api
+from hisstools_library.ops import spectral, spectral_processor as sp
 
 EM = sp.EdgeMode
 

@@ -10,7 +10,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
 def test_convolve_wav_cli(tmp_path, rng):
     import convolve_wav
-    from hisstools_library_tpu.io import (FileType, IAudioFile, OAudioFile,
+    from hisstools_library.io import (FileType, IAudioFile, OAudioFile,
                                           PCMFormat)
 
     sr = 48000.0
@@ -39,7 +39,7 @@ def test_convolve_wav_cli(tmp_path, rng):
 
 def test_convolve_wav_cli_scheme_engine(tmp_path, rng):
     import convolve_wav
-    from hisstools_library_tpu.io import (FileType, IAudioFile, OAudioFile,
+    from hisstools_library.io import (FileType, IAudioFile, OAudioFile,
                                           PCMFormat)
 
     sr = 44100.0
@@ -64,42 +64,3 @@ def test_convolve_wav_cli_scheme_engine(tmp_path, rng):
     err = y - ref
     snr = 10 * np.log10((ref * ref).sum() / (err * err).sum())
     assert snr > 90.0
-
-
-def test_vmem_probe_boundary_search():
-    """The probe's monotone boundary search and the feasibility-model
-    invariants it validates (tools/vmem_probe.py)."""
-    import vmem_probe
-    from hisstools_library_tpu.fft import pallas_fft as pf
-    from hisstools_library_tpu.fft import pallas_kernels as pk
-
-    # _max_true: largest v with pred(v) true under a monotone predicate.
-    assert vmem_probe._max_true(lambda v: v <= 37, 1, 4096) == 37
-    assert vmem_probe._max_true(lambda v: v <= 4096, 1, 4096) == 4096
-    assert vmem_probe._max_true(lambda v: False, 1, 4096) is None
-
-    # Round-2 hardware finding: the (P, P) exchange matrix must be counted —
-    # P=4096 (67 MB of exchange matrix alone) aborted the TPU compiler while
-    # the old model claimed it feasible.
-    assert not pk.lag_mac_causal_fits(16, 4096, 16384)
-    assert not pk.lag_mac_ring_fits(16, 4096, 16384)
-    # The validated envelope stays claimable.
-    assert pk.lag_mac_causal_fits(16, 59, 16384)
-    assert pk.lag_mac_ring_fits(16, 59, 16384)
-    # Partition counts beyond the compile-time envelope are refused even
-    # where the byte model would admit them.
-    assert not pk.lag_mac_causal_fits(16, pk._MAX_MAC_PARTITIONS + 1, 16384)
-
-    # Round-2 hardware finding: HIGHEST dots allocate internal operand splits;
-    # the complex fused kernel at 2^17 must fall back in highest mode (the
-    # ungated group=1 estimate passed the budget but aborted the compiler).
-    from hisstools_library_tpu.fft import matmul_fft
-    n = pf.MAX_COMPLEX_SIZE
-    n1, n2 = matmul_fft._split_factors(n)
-    tables = 4 * (2 * n1 * n1 + 2 * n2 * n2 + 2 * n1 * n2)
-    assert pf._pick_group(4, 16 * n, 32 * n1 * n2, tables, highest=False) > 0
-    assert pf._pick_group(4, 16 * n, 32 * n1 * n2, tables, highest=True) == 0
-
-    # The scale knob contract: budgets are MiB scaled by HISSTOOLS_VMEM_SCALE
-    # (default 1.0 in the test environment).
-    assert pf.vmem_budget(13) == 13 * 1024 * 1024

@@ -1,7 +1,7 @@
 """Two-tier block-collapsed streaming (mono.MonoBlockState).
 
 The Zero preset's final section MACs the whole far IR at its own hop — the
-measured VPU-pinned cost of streaming (BASELINE.md round 4). The two-tier path
+dominant cost of a long-IR stream. The two-tier path
 re-chunks the IR beyond G partitions at hop G*h (mono._process_block_two_tier)
 while preserving the scheme's output exactly and the hand-off to the
 per-section / sample-granular paths. Reference analogue: the non-uniform
@@ -12,8 +12,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from hisstools_library_tpu.models import mono
-from hisstools_library_tpu.models.mono import LatencyMode, PartitionScheme
+from hisstools_library.models import mono
+from hisstools_library.models.mono import LatencyMode, PartitionScheme
 
 
 @pytest.fixture
@@ -107,7 +107,7 @@ def test_two_tier_rejects_non_far_hop_blocks(rng):
 
 
 def test_init_block_state_requires_far(rng):
-    from hisstools_library_tpu.core.errors import ConvolveException
+    from hisstools_library.core.errors import ConvolveException
     scheme = PartitionScheme((32, 128), zero_latency=True)
     ir = rng.standard_normal(500)  # too short for a far tier past o2
     mir = mono.prepare_ir(scheme, ir, dtype=jnp.float64, offline_tail=False)
@@ -185,7 +185,7 @@ def test_block_state_from_hist_roundtrip(rng):
 
 def test_convolver_block_state_parallel(rng):
     """multichannel.Convolver drives the two-tier path per channel."""
-    from hisstools_library_tpu.models import multichannel
+    from hisstools_library.models import multichannel
 
     conv = multichannel.Convolver(2, scheme=SCHEME)
     irs = rng.standard_normal((2, IR_LEN)) * 0.3
@@ -203,7 +203,7 @@ def test_convolver_block_state_parallel(rng):
 def test_block_state_checkpoint_roundtrip(rng, tmp_path):
     """MonoBlockState serialises through the checkpoint layer and resumes
     identically (SURVEY §5 checkpoint/resume applies to the new state type)."""
-    from hisstools_library_tpu.utils import checkpoint
+    from hisstools_library.utils import checkpoint
 
     ir, mir = _prep(rng)
     h2 = mir.far.shape[-1]
@@ -219,18 +219,17 @@ def test_block_state_checkpoint_roundtrip(rng, tmp_path):
     np.testing.assert_array_equal(np.asarray(y_a), np.asarray(y_b))
 
 
-def test_two_tier_f32_pallas_backend(rng):
-    """The f32 path (ring/chain kernels in interpret mode on CPU) matches the
-    oracle at f32 accuracy."""
+def test_two_tier_f32(rng):
+    """The f32 two-tier path matches the float64 oracle at f32 accuracy."""
     ir, mir0 = _prep(rng)
     mir = mono.prepare_ir(SCHEME, ir, dtype=jnp.float32, offline_tail=False)
     h2 = mir.far.shape[-1]
     L = h2 * 2
     st = mono.init_block_state(SCHEME, mir, dtype=jnp.float32)
     x = rng.standard_normal(L).astype(np.float32)
-    st, y1 = mono.process(mir, st, jnp.asarray(x), backend="pallas")
+    st, y1 = mono.process(mir, st, jnp.asarray(x))
     x2 = rng.standard_normal(L).astype(np.float32)
-    _, y2 = mono.process(mir, st, jnp.asarray(x2), backend="pallas")
+    _, y2 = mono.process(mir, st, jnp.asarray(x2))
     y = np.concatenate([np.asarray(y1), np.asarray(y2)])
     ref = np.convolve(np.concatenate([x, x2]).astype(np.float64),
                       np.asarray(ir, np.float64))[:2 * L]

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import scipy.stats
 
-from hisstools_library_tpu.utils import CMWC, MemorySwap, RandomGenerator, ltqnorm
+from hisstools_library.utils import CMWC, MemorySwap, RandomGenerator, ltqnorm
 
 
 # -- CMWC ---------------------------------------------------------------------------
@@ -169,3 +169,45 @@ def test_equal_exact_size_semantics():
     h.grow(lambda n: f"h{n}", 3)
     assert h.get_size() == 6
     h.release()
+
+
+def _cache_config():
+    import jax
+    return jax.config.jax_compilation_cache_dir
+
+
+def test_compile_cache_follows_env(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, that is the cache and no code sets
+    another directory."""
+    import jax
+
+    from hisstools_library.utils import profiling
+    before = _cache_config()
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    try:
+        assert profiling.enable_compile_cache() == str(tmp_path)
+        assert _cache_config() == before
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+@pytest.mark.parametrize("stale", [None, "HISSTOOLS_JAX_CACHE"])
+def test_compile_cache_fixed_path_without_env(monkeypatch, tmp_path, stale):
+    """Without it, the cache is the fixed <checkout>/.jax_cache; the old
+    HISSTOOLS_JAX_CACHE variable no longer moves it."""
+    import os
+
+    import jax
+
+    from hisstools_library.utils import profiling
+    before = _cache_config()
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    if stale:
+        monkeypatch.setenv(stale, str(tmp_path))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    try:
+        got = profiling.enable_compile_cache()
+        assert got == os.path.join(root, ".jax_cache")
+        assert _cache_config() == got
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 import scipy.signal.windows as sw
 
-from hisstools_library_tpu.ops import windows
-from hisstools_library_tpu.ops.windows import Params
+from hisstools_library.ops import windows
+from hisstools_library.ops.windows import Params
 
 
 def gen64(name, N, begin=0, end=None, params=Params()):

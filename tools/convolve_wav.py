@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-"""Convolve an audio file with an impulse response on TPU.
+"""Convolve an audio file with an impulse response on the GPU (or CPU).
 
 The end-user workflow the reference library serves (HIRT: apply a measured room
 IR / reverb to a recording) as a command-line tool over this framework's full
-stack: audio-file I/O (io/audio_file.py) -> fused Pallas convolution engine
+stack: audio-file I/O (io/audio_file.py) -> partitioned convolution engine
 (models/offline.py) -> audio-file output.
 
     python tools/convolve_wav.py input.wav ir.wav output.wav
@@ -30,13 +30,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def _pcm_format(name: str):
     """--pcm choice -> PCMFormat (one mapping for both output paths)."""
-    from hisstools_library_tpu.io import PCMFormat
+    from hisstools_library.io import PCMFormat
     return {"int16": PCMFormat.Int16, "int24": PCMFormat.Int24,
             "float32": PCMFormat.Float32}[name]
 
 
 def read_wav(path):
-    from hisstools_library_tpu.io import IAudioFile, get_error_string
+    from hisstools_library.io import IAudioFile, get_error_string
 
     with IAudioFile(path) as f:
         if f.get_is_error():
@@ -47,7 +47,7 @@ def read_wav(path):
 
 
 def write_wav(path, x, sr, pcm="float32"):
-    from hisstools_library_tpu.io import FileType, OAudioFile
+    from hisstools_library.io import FileType, OAudioFile
 
     fmt = _pcm_format(pcm)
     with OAudioFile(path, FileType.WAVE, fmt, x.shape[0], float(sr)) as f:
@@ -61,10 +61,10 @@ def stream_convolve(args):
     the block size regardless of file length."""
     import jax
     import jax.numpy as jnp
-    from hisstools_library_tpu.io import FileType, OAudioFile
-    from hisstools_library_tpu.io.streaming import AudioBlockReader
-    from hisstools_library_tpu.models import mono
-    from hisstools_library_tpu.models.mono import LatencyMode, PartitionScheme
+    from hisstools_library.io import FileType, OAudioFile
+    from hisstools_library.io.streaming import AudioBlockReader
+    from hisstools_library.models import mono
+    from hisstools_library.models.mono import LatencyMode, PartitionScheme
 
     ir, ir_sr = read_wav(args.ir)
     scheme = PartitionScheme.from_latency(LatencyMode.Zero)  # zero delay
@@ -83,7 +83,7 @@ def stream_convolve(args):
 
     prep = mono.prepare_ir(scheme, ir, dtype=jnp.float32, offline_tail=False)
     state = mono.init_state(scheme, prep, batch_shape=(cx,))
-    step = jax.jit(lambda i, s, b: mono.process(i, s, b, backend="pallas"))
+    step = jax.jit(lambda i, s, b: mono.process(i, s, b))
 
     fmt = _pcm_format(args.pcm)
     total_in = reader.frames
@@ -153,14 +153,14 @@ def main(argv=None):
                     help="streaming block size in frames (rounded up to the "
                          "engine hop)")
     ap.add_argument("--cpu", action="store_true",
-                    help="run on CPU (Pallas interpret mode)")
+                    help="run on the CPU")
     args = ap.parse_args(argv)
 
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
-    from hisstools_library_tpu.utils.profiling import enable_compile_cache
+    from hisstools_library.utils.profiling import enable_compile_cache
     enable_compile_cache()
 
     if args.stream:
@@ -188,17 +188,17 @@ def main(argv=None):
 
     t0 = time.time()
     if args.engine == "fast":
-        from hisstools_library_tpu.models.offline import fast_fir
-        y = fast_fir(jnp.asarray(xs), ir, backend="pallas")
+        from hisstools_library.models.offline import fast_fir
+        y = fast_fir(jnp.asarray(xs), ir)
     else:
-        from hisstools_library_tpu.models import mono
-        from hisstools_library_tpu.models.mono import LatencyMode, PartitionScheme
+        from hisstools_library.models import mono
+        from hisstools_library.models.mono import LatencyMode, PartitionScheme
         scheme = PartitionScheme.from_latency(LatencyMode.Zero)
         hop = scheme.sizes[-1] >> 1
         if xs.shape[-1] % hop:
             xs = np.pad(xs, ((0, 0), (0, hop - xs.shape[-1] % hop)))
         prep = mono.prepare_ir(scheme, ir, dtype=jnp.float32)
-        y = mono.process_offline(prep, jnp.asarray(xs), backend="pallas")
+        y = mono.process_offline(prep, jnp.asarray(xs))
     y = np.asarray(y)[:, :out_len]
     dt = time.time() - t0
     rate = cx * out_len / max(dt, 1e-9) / (cx * sr)

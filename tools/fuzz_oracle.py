@@ -3,8 +3,8 @@
 
 Draws random (channel count, signal length, IR length, fft size, scheme,
 engine) configurations and checks every output against numpy float64
-``np.convolve`` to a hard SNR floor. CPU by default (Pallas interpret mode —
-the same programs the TPU runs); pass --tpu to fuzz on hardware.
+``np.convolve`` to a hard SNR floor. CPU by default; pass --device to fuzz on
+the default device (the GPU).
 
     python tools/fuzz_oracle.py --minutes 30 --seed 0
 """
@@ -26,8 +26,8 @@ def main(argv=None):
     ap.add_argument("--minutes", type=float, default=10.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--snr", type=float, default=85.0)
-    ap.add_argument("--tpu", action="store_true",
-                    help="fuzz on the default (TPU) backend instead of CPU")
+    ap.add_argument("--device", action="store_true",
+                    help="fuzz on the default device (the GPU) instead of CPU")
     ap.add_argument("--stages", action="store_true",
                     help="on failure, print a per-stage SNR report "
                          "(utils.debug_stages) to localise the stage that "
@@ -35,18 +35,18 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     import jax
-    if not args.tpu:
+    if not args.device:
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from hisstools_library_tpu.utils.profiling import enable_compile_cache
+    from hisstools_library.utils.profiling import enable_compile_cache
     enable_compile_cache()  # randomized shapes recompile every run otherwise
 
-    from hisstools_library_tpu.models import mono
-    from hisstools_library_tpu.models.mono import PartitionScheme
-    from hisstools_library_tpu.models.offline import FastFIR, fast_fir
-    from hisstools_library_tpu.models import partitioned as part
-    from hisstools_library_tpu.core.types import Split
+    from hisstools_library.models import mono
+    from hisstools_library.models.mono import PartitionScheme
+    from hisstools_library.models.offline import FastFIR, fast_fir
+    from hisstools_library.models import partitioned as part
+    from hisstools_library.core.types import Split
 
     rng = np.random.default_rng(args.seed)
     deadline = time.time() + args.minutes * 60.0
@@ -65,24 +65,22 @@ def main(argv=None):
         if snr <= args.snr:
             failures.append((tag, cfg, snr))
             if args.stages and raw is not None:
-                from hisstools_library_tpu.utils import debug_stages
+                from hisstools_library.utils import debug_stages
                 ir_raw, x_raw = raw
-                rep = debug_stages.stage_report(ir_raw, x_raw,
-                                                backend="pallas")
+                rep = debug_stages.stage_report(ir_raw, x_raw)
                 print(debug_stages.format_report(rep), flush=True)
             if args.stages and stream_raw is not None:
                 # Streaming failure: localise with the streaming stage
-                # mirrors (round-4 — frame_rfft/ring_mac/lag0/rifft_tail/
-                # refresh/subhop_fire/subhop_doling).
-                from hisstools_library_tpu.utils import debug_stages
+                # mirrors (frame_rfft/ring_mac/lag0/rifft_tail/refresh/
+                # subhop_fire/subhop_doling).
+                from hisstools_library.utils import debug_stages
                 ir_raw, x_raw, sch = stream_raw
                 B = sch.sizes[-1] >> 1
                 pad = max(0, 2 * B - x_raw.shape[-1])
                 x2 = np.pad(np.asarray(x_raw, np.float32),
                             [(0, 0)] * (x_raw.ndim - 1) + [(0, pad)])
                 rep = debug_stages.stream_stage_report(
-                    ir_raw, x2[..., :B], x2[..., B:2 * B], scheme=sch,
-                    backend="pallas")
+                    ir_raw, x2[..., :B], x2[..., B:2 * B], scheme=sch)
                 print(debug_stages.format_report(rep), flush=True)
 
     while time.time() < deadline:
@@ -102,7 +100,7 @@ def main(argv=None):
             log2n = int(rng.integers(part.MIN_FFT_SIZE_LOG2, 18))
             nfft = 1 << log2n
             cfg = f"fast_fir c={c} L={L} ir={irl} N=2^{log2n}"
-            y = fast_fir(jnp.asarray(x), ir, fft_size=nfft, backend="pallas")
+            y = fast_fir(jnp.asarray(x), ir, fft_size=nfft)
             check("fast_fir", ref, y, cfg, raw=(ir, x))
         elif pick == 1:
             # random valid ascending scheme
@@ -112,15 +110,15 @@ def main(argv=None):
             zl = bool(rng.integers(0, 2))
             scheme = PartitionScheme(sizes, zero_latency=zl)
             prep = mono.prepare_ir(scheme, ir)
-            y = mono.process_offline(prep, jnp.asarray(x), backend="pallas")
+            y = mono.process_offline(prep, jnp.asarray(x))
             lat = scheme.latency
             ref_l = np.concatenate(
                 [np.zeros((c, lat)), ref[:, :L - lat]], axis=-1)
             cfg = f"scheme {sizes} zl={zl} c={c} L={L} ir={irl}"
             check("scheme_offline", ref_l, y, cfg, raw=(ir, x))
-        elif pick == 3 and not args.tpu:
+        elif pick == 3 and not args.device:
             # Sharded offline on a random virtual-mesh factorisation.
-            from hisstools_library_tpu.parallel import (make_mesh,
+            from hisstools_library.parallel import (make_mesh,
                                                         scheme_offline_sharded)
             ndev = len(jax.devices())
             facs = [(a, ndev // a) for a in (1, 2, 4, 8)
@@ -136,8 +134,7 @@ def main(argv=None):
             xs = (rng.standard_normal((cs, Ls)) * amp).astype(np.float32)
             irs = (rng.standard_normal((cs, irl)) * 0.2).astype(np.float32)
             prep = mono.prepare_ir(scheme, irs, offline_tail=False)
-            y = scheme_offline_sharded(mesh, scheme, prep, jnp.asarray(xs),
-                                       backend="pallas")
+            y = scheme_offline_sharded(mesh, scheme, prep, jnp.asarray(xs))
             y_ref = mono.process_offline(prep, jnp.asarray(xs))
             cfg = (f"sharded mesh={ch_ax}x{blk_ax} c={cs} L={Ls} "
                    f"ir={irl} N={sizes[0]}")
@@ -155,13 +152,12 @@ def main(argv=None):
             st = mono.init_stream_state(scheme, prep, batch_shape=(c,))
             outs = []
             i = 0
-            # Cap the callback count: each call is a fresh interpret-mode
-            # evaluation on CPU, so unbounded tiny callbacks dominate runtime.
+            # Cap the callback count: each call is an eager (unjitted)
+            # evaluation, so unbounded tiny callbacks dominate runtime.
             lo = max(1, Ls // 12)
             while i < Ls and len(outs) < 16:
                 b = min(int(rng.integers(lo, lo + 600)), Ls - i)
-                st, yb = mono.process_any(prep, st, jnp.asarray(xs[:, i:i + b]),
-                                          backend="pallas")
+                st, yb = mono.process_any(prep, st, jnp.asarray(xs[:, i:i + b]))
                 outs.append(np.asarray(yb))
                 i += b
             y = np.concatenate(outs, axis=-1)
@@ -172,7 +168,7 @@ def main(argv=None):
             check("subhop_any_blocks", refs, y, cfg,
                   stream_raw=(ir, xs, scheme))
         elif pick == 5:
-            # Two-tier block streaming (round 5): random scheme whose IR
+            # Two-tier block streaming: random scheme whose IR
             # extends past the far hop; carried MonoBlockState over two calls.
             base = int(rng.integers(5, 8))
             sizes = tuple(1 << (base + k)
@@ -200,10 +196,8 @@ def main(argv=None):
                   else np.pad(x, ((0, 0), (0, Ls - L))))
             st = mono.init_block_state(scheme, prep, batch_shape=(c,))
             cut = (nb // 2) * h2
-            st, y1 = mono.process(prep, st, jnp.asarray(xs[:, :cut]),
-                                  backend="pallas")
-            _, y2 = mono.process(prep, st, jnp.asarray(xs[:, cut:]),
-                                 backend="pallas")
+            st, y1 = mono.process(prep, st, jnp.asarray(xs[:, :cut]))
+            _, y2 = mono.process(prep, st, jnp.asarray(xs[:, cut:]))
             y = np.concatenate([np.asarray(y1), np.asarray(y2)], axis=-1)
             lat = scheme.latency
             refs = np.stack([np.convolve(xs[i].astype(np.float64),

@@ -1,8 +1,8 @@
-"""Multi-process (DCN-path) dry run: jax.distributed over N CPU processes.
+"""Multi-process dry run: jax.distributed over N CPU processes.
 
 The single-process virtual mesh (tests/conftest.py, dryrun_multichip) exercises
-the collective *code*; this tool exercises the *multi-process runtime path* the
-pod-slice (DCN) deployment uses: ``jax.distributed.initialize`` + a global mesh
+the collective *code*; this tool exercises the *multi-process runtime path* a
+multi-host deployment uses: ``jax.distributed.initialize`` + a global mesh
 whose channel axis spans processes, globally-sharded arrays built per-process
 from addressable shards, and the same `scheme_offline_sharded` /
 `n_to_one_offline` code with zero changes — proving the framework's sharding
@@ -37,22 +37,22 @@ def child(proc_id: int, num_procs: int, local_devices: int) -> int:
                                num_processes=num_procs,
                                process_id=proc_id)
     import jax.numpy as jnp
-    from hisstools_library_tpu.utils.profiling import enable_compile_cache
+    from hisstools_library.utils.profiling import enable_compile_cache
     enable_compile_cache()
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from hisstools_library_tpu.models import mono
-    from hisstools_library_tpu.models.mono import PartitionScheme
-    from hisstools_library_tpu.parallel import (make_mesh,
+    from hisstools_library.models import mono
+    from hisstools_library.models.mono import PartitionScheme
+    from hisstools_library.parallel import (make_mesh,
                                                 scheme_offline_sharded,
                                                 n_to_one_offline)
-    from hisstools_library_tpu.parallel.mesh import BLOCK_AXIS, CHANNEL_AXIS
+    from hisstools_library.parallel.mesh import BLOCK_AXIS, CHANNEL_AXIS
 
     n_dev = num_procs * local_devices
     assert len(jax.devices()) == n_dev, (len(jax.devices()), n_dev)
 
-    # Channel axis spans processes (the DCN direction on a pod slice); block
-    # axis stays within a process (the ICI direction).
+    # Channel axis spans processes (the between-host direction); block axis
+    # stays within a process (the within-host direction).
     mesh = make_mesh(channel=num_procs, block=local_devices)
 
     scheme = PartitionScheme((32, 64), zero_latency=True)
@@ -108,10 +108,10 @@ def child(proc_id: int, num_procs: int, local_devices: int) -> int:
     # (scheme_stream_any_sharded): the serving-at-scale path — each device
     # advances its channel shard's sub-hop state independently; must be
     # bit-identical to the single-process engine across the whole ragged
-    # sequence (round-4 VERDICT item: the DCN analogue of the
-    # single-process-verified serving path).
-    from hisstools_library_tpu.parallel import scheme_stream_any_sharded
-    from hisstools_library_tpu.parallel.sharded import _chan_specs
+    # sequence (the multi-process analogue of the single-process-verified
+    # serving path).
+    from hisstools_library.parallel import scheme_stream_any_sharded
+    from hisstools_library.parallel.sharded import _chan_specs
 
     sstate = mono.init_stream_state(scheme, ir, batch_shape=(C,))
 
